@@ -1,4 +1,4 @@
-"""Literature benchmark suite for the TPU-native NeutFEM rebuild.
+"""Literature benchmark suite for the NeutFEM rebuild.
 
 Five classic PWR multigroup diffusion benchmarks (IAEA-2D/3D, BIBLIS-2D,
 KOEBERG-2D 4-group, ZION-2D with baffle), implemented as one data-driven runner

@@ -1,45 +1,29 @@
-"""ICI collective-traffic accounting from the compiled 8-device sharded HLO.
+"""Collective-traffic accounting from the compiled sharded HLO.
 
-Round-4 VERDICT Next #1b: "sharding is the intended path past ~3M cells/chip"
-(README scaling guidance) was a design claim with no arithmetic behind it.
-This tool turns it into numbers: it compiles the FULL sharded power iteration
-(parallel.sharded_power_iteration — the exact artifact path dryrun_multichip
-validates) for the IAEA-3D benchmark scales over an 8-device mesh, parses the
-SPMD-partitioned optimized HLO, and accounts every collective byte by loop
-depth:
+Compiles the FULL sharded power iteration (parallel.sharded_power_iteration)
+for IAEA-3D meshes over a virtual CPU device mesh, parses the SPMD-partitioned
+optimized HLO, and counts every collective byte by loop depth:
 
   depth 0  once per solve          (setup / final norms)
   depth 1  once per OUTER iteration (fission psum, flux norm, halo of the
                                      face-rhs build, CMFD off)
   depth 2  once per inner CG iteration PER GROUP (Schur-matvec halo exchange,
-                                     cut-axis associative-scan permutes, CG
+                                     cut-axis partitioned-solve gathers, CG
                                      dot-product all-reduces)
 
 The virtual CPU mesh is a faithful proxy for the per-device collective SHAPES:
-GSPMD partitioning is platform-independent (the same sharded computation the
-TPU would run), and every collective's output shape in the partitioned module
-is already the per-device buffer.  What the CPU proxy does NOT model is which
-A-solve kernel runs per shard (on TPU the Pallas Thomas kernels engage on
-uncut directions via shard_map — zero collectives inside, so the collective
-inventory is unaffected; the cut direction uses the associative-scan path on
-BOTH platforms).
-
-Projection model (documented assumptions, stated in the output):
-  * v5e ICI one-way bandwidth per link: 4.5e10 B/s (public scaling-book
-    number); a 1D-ring cut exchanges with 2 neighbors over independent links,
-    we conservatively serialize all bytes onto ONE link.
-  * scalar all-reduce latency floor: ``--ar-latency-us`` (default 2.0 us) per
-    all-reduce — CG dot products are latency- not bandwidth-bound (the
-    round-3 host-transfer law's on-device analogue).  This term DOMINATES the
-    bandwidth term at every scale measured.
+GSPMD partitioning is platform-independent, and every collective's output shape
+in the partitioned module is already the per-device buffer.  Which A-solve
+kernel runs per shard does not change the inventory: shard-local solves have no
+collectives inside.  Bytes only; collective time is measured on the cards.
 
 Per-inner bytes are reported per CG-body execution; the module contains one
 structurally identical CG while per group, so module-level depth-2 sums are
-divided by ng before multiplying by the measured total inners/outer
-(BENCH_extra.json rows).
+divided by ng.  With ``--inners-per-outer`` (a measured count) the tool also
+reports bytes per outer iteration.
 
-    python -m benchmarks.ici_accounting                  # all scales
-    python -m benchmarks.ici_accounting --scales 3.5M --json SHARDING_r05.json
+    python -m benchmarks.ici_accounting                       # 4 devices
+    python -m benchmarks.ici_accounting --scales 3.5M --inners-per-outer 39 --json out.json
 """
 
 from __future__ import annotations
@@ -115,75 +99,54 @@ def summarize(inv: List[Dict]) -> Dict:
     return {str(k): v for k, v in sorted(by.items())}
 
 
-ICI_BW = 4.5e10  # v5e one-way ICI bytes/s per link (public scaling-book value)
-
-
-def accounting_for(summary: Dict, ng: int, inners_per_outer: float,
-                   ar_latency_us: float = 2.0) -> Dict:
-    """Assemble per-outer ICI traffic + a projected ICI time from the
-    depth-binned summary and the MEASURED inners/outer of the same config."""
+def accounting_for(summary: Dict, ng: int,
+                   inners_per_outer: Optional[float] = None) -> Dict:
+    """Per-inner and (given a measured inners/outer count) per-outer collective
+    bytes and all-reduce counts from the depth-binned summary."""
     d1 = summary.get("1", {"bytes": 0, "count": 0, "ops": {}})
     d2 = summary.get("2", {"bytes": 0, "count": 0, "ops": {}})
     # depth-2 sums span the ng structurally identical per-group CG loops
     per_inner_bytes = d2["bytes"] / max(ng, 1)
     per_inner_ar = d2["ops"].get("all-reduce", {"count": 0})["count"] / max(ng, 1)
-    bytes_per_outer = d1["bytes"] + per_inner_bytes * inners_per_outer
-    ar_per_outer = (d1["ops"].get("all-reduce", {"count": 0})["count"]
-                    + per_inner_ar * inners_per_outer)
-    bw_ms = 1e3 * bytes_per_outer / ICI_BW
-    lat_ms = 1e3 * ar_per_outer * ar_latency_us * 1e-6
-    return {
-        "bytes_per_outer": int(bytes_per_outer),
-        "MB_per_outer": round(bytes_per_outer / 1e6, 3),
+    out = {
+        "per_outer_fixed_bytes": int(d1["bytes"]),
         "per_inner_bytes": int(per_inner_bytes),
-        "allreduces_per_outer": round(ar_per_outer, 1),
-        "ici_bandwidth_ms_per_outer": round(bw_ms, 4),
-        "allreduce_latency_ms_per_outer": round(lat_ms, 4),
-        "projected_ici_ms_per_outer": round(bw_ms + lat_ms, 4),
-        "assumptions": {
-            "ici_oneway_bytes_per_s": ICI_BW,
-            "allreduce_latency_us": ar_latency_us,
-            "inners_per_outer": inners_per_outer,
-        },
+        "per_inner_allreduces": round(per_inner_ar, 2),
     }
+    if inners_per_outer is not None:
+        bytes_per_outer = d1["bytes"] + per_inner_bytes * inners_per_outer
+        out.update({
+            "bytes_per_outer": int(bytes_per_outer),
+            "MB_per_outer": round(bytes_per_outer / 1e6, 3),
+            "allreduces_per_outer": round(
+                d1["ops"].get("all-reduce", {"count": 0})["count"]
+                + per_inner_ar * inners_per_outer, 1),
+            "inners_per_outer": inners_per_outer,
+        })
+    return out
 
 
-# (mesh_n, mesh_nz) per scale; measured inners/outer + single-chip ms/outer
-# from BENCH_extra.json when present (fallback: round-4 measured constants)
+# (mesh_n, mesh_nz) per IAEA-3D scale
 SCALES = {
-    "988k": dict(mesh_n=6, mesh_nz=4, metric="iaea3d_seconds_per_outer_iteration"),
-    "2.6M": dict(mesh_n=8, mesh_nz=6, metric="iaea3d_2p6M_seconds_per_outer_iteration"),
-    "3.5M": dict(mesh_n=8, mesh_nz=8, metric="iaea3d_3p5M_seconds_per_outer_iteration"),
+    "988k": dict(mesh_n=6, mesh_nz=4),
+    "2.6M": dict(mesh_n=8, mesh_nz=6),
+    "3.5M": dict(mesh_n=8, mesh_nz=8),
 }
-_FALLBACK = {"988k": (31.4, 5.41), "2.6M": (43.0, 14.11), "3.5M": (39.4, 37.21)}
 
-# candidate 8-device topologies: (label, mesh shape or None for 1D, grid axes)
-TOPOLOGIES = [
-    ("z8", None, 0),
-    ("y8", None, 1),
-    ("z4y2", (4, 2), (0, 1)),
-    ("z2y4", (2, 4), (0, 1)),
-]
-
-
-def _measured(scale: str):
-    try:
-        rows = json.load(open("BENCH_extra.json"))
-        for r in rows:
-            if r["metric"] == SCALES[scale]["metric"]:
-                d = r["detail"]
-                return (d["inner_iterations"] / d["outer_iterations"],
-                        1e3 * r["value"])
-    except Exception:
-        pass
-    return _FALLBACK[scale]
+# candidate device topologies: (label, mesh shape or None for 1D, grid axes)
+TOPOLOGIES = {
+    4: [("z4", None, 0), ("y4", None, 1), ("z2y2", (2, 2), (0, 1))],
+    8: [("z8", None, 0), ("y8", None, 1), ("z4y2", (4, 2), (0, 1)),
+        ("z2y4", (2, 4), (0, 1))],
+}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--scales", default="988k,2.6M,3.5M")
-    p.add_argument("--n-devices", type=int, default=8)
-    p.add_argument("--ar-latency-us", type=float, default=2.0)
+    p.add_argument("--n-devices", type=int, default=4, choices=sorted(TOPOLOGIES))
+    p.add_argument("--inners-per-outer", type=float, default=None,
+                   help="measured CG inners per outer, for per-outer totals")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
 
@@ -203,8 +166,8 @@ def main(argv=None):
 
     import jax.numpy as jnp
 
-    from neutfem_tpu import config
-    from neutfem_tpu.parallel import (device_mesh, shard_context, shard_state,
+    from neutfem_jax import config
+    from neutfem_jax.parallel import (device_mesh, shard_context, shard_state,
                                       sharded_power_iteration)
 
     from .data import BENCHMARKS
@@ -213,7 +176,6 @@ def main(argv=None):
     rows = []
     for scale in args.scales.split(","):
         cfg = SCALES[scale]
-        inners, ms_single = _measured(scale)
         run = BenchmarkRun(BENCHMARKS["iaea3d"], mesh_n=cfg["mesh_n"],
                            mesh_nz=cfg["mesh_nz"], verbose=False)
         s = run.solver
@@ -223,7 +185,7 @@ def main(argv=None):
         opts = s._opts("exact")
         shape = fes.mesh.shape
         phi0 = jnp.ones((ng, *shape, fes.P), dtype=config.real_dtype)
-        for label, mshape, gaxes in TOPOLOGIES:
+        for label, mshape, gaxes in TOPOLOGIES[args.n_devices]:
             ndv = args.n_devices
             ax_list = [gaxes] if isinstance(gaxes, int) else list(gaxes)
             sizes = [ndv] if mshape is None else list(mshape)
@@ -237,11 +199,10 @@ def main(argv=None):
             lowered = runf.lower(ctx_sh, phi_sh, 1.0)
             txt = lowered.compile().as_text()
             summ = summarize(collective_inventory(txt))
-            acct = accounting_for(summ, ng, inners, args.ar_latency_us)
+            acct = accounting_for(summ, ng, args.inners_per_outer)
             row = {
                 "scale": scale, "mesh": f"{shape}", "topology": label,
                 "n_devices": ndv, "ng": ng,
-                "single_chip_ms_per_outer": ms_single,
                 "per_depth": summ, "accounting": acct,
             }
             rows.append(row)

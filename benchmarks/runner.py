@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from neutfem import BCType, LinearSolverType, NeutFEM, VerbosityLevel
-from neutfem_tpu.mesh import boundary_attribute
+from neutfem_jax.mesh import boundary_attribute
 
 from .data import BENCHMARKS, BenchmarkSpec, sigr_of
 
@@ -347,7 +347,7 @@ def run_benchmark(name: str, mesh_n: int = 2, mesh_nz: int = 1, domain: str = "e
 
 
 def main(name: str, argv: Optional[Sequence[str]] = None):
-    p = argparse.ArgumentParser(description=f"{name} benchmark (TPU-native NeutFEM)")
+    p = argparse.ArgumentParser(description=f"{name} benchmark (NeutFEM on JAX)")
     p.add_argument("--mesh", default="2x2", help="NxN subdivision per assembly")
     p.add_argument("--mesh-z", type=int, default=1, help="axial subdivisions per plane (3D)")
     p.add_argument("--domain", default="entier")
@@ -373,7 +373,7 @@ def main(name: str, argv: Optional[Sequence[str]] = None):
                        verbose=args.verbose, rt_order=rt, p_order=po)
     cf = ()
     if args.coarse:
-        from neutfem_tpu.coarse import default_coarse_factors
+        from neutfem_jax.coarse import default_coarse_factors
 
         cf = list(default_coarse_factors(run.solver._mesh))
     t0 = time.time()

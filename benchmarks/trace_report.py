@@ -1,23 +1,21 @@
 """Per-kernel device-time accounting from a ``NEUTFEM_PROFILE`` trace.
 
-TPU-native analogue of the reference's per-phase chrono report
+The analogue of the reference's per-phase chrono report
 (/root/reference/src/NeutFEM.cpp:1688-1700): where the reference times whole
-solver phases on the host, XLA's profiler gives per-fusion device time and the
-bytes each op touched — the numbers every round-2/3 optimization law in
-CLAUDE.md was adjudicated with (conv-rewrite trap, lane-padding diagnosis,
-fusion-barrier law).  This tool makes that parsing reproducible instead of a
-/tmp one-off.
+solver phases on the host, the JAX profiler gives per-op device time.  This
+tool makes that parsing reproducible.
 
     NEUTFEM_PROFILE=/tmp/tr python -m benchmarks.iaea3d --mesh 4x4x2 --order 2
     python -m benchmarks.trace_report /tmp/tr [--top 25] [--json out.json]
 
-Aggregates every XLA device event under the trace dir (the profiler writes
-``plugins/profile/<ts>/*.trace.json.gz``), groups by op name, and reports
-device time, occurrences, bytes accessed, and effective HBM bandwidth
-(bytes_accessed / device_time — XLA's cost-model bytes, i.e. logical traffic;
-Pallas kernels report only their I/O buffers).  Rows whose GB/s column sits
-near the chip's HBM peak are at the DMA bound; a "regression" there is a NEW
-top row, not a slower kernel (measurement law, CLAUDE.md round 3).
+Reads every ``*.xplane.pb`` under the trace dir (the profiler writes
+``plugins/profile/<ts>/``) with ``jax.profiler.ProfileData``.  On a GPU trace it
+keeps the device planes (``/device:GPU:<n>``): the "XLA Ops" line where the
+plane has one (events named by HLO op), else the stream lines (kernel
+launches).  A CPU-only trace has no device plane; its XLA op events on
+``/host:CPU`` are kept instead, so the tool stays usable for CPU runs.  Events
+are grouped by op name with device time, occurrences and, where the profiler
+records it, bytes accessed and the resulting GB/s.
 """
 
 from __future__ import annotations
@@ -25,7 +23,6 @@ from __future__ import annotations
 import argparse
 import collections
 import glob
-import gzip
 import json
 import os
 from typing import Dict, List
@@ -33,46 +30,36 @@ from typing import Dict, List
 __all__ = ["load_device_events", "aggregate", "main"]
 
 
-def _trace_files(trace_dir: str) -> List[str]:
-    pats = [
-        os.path.join(trace_dir, "**", "*.trace.json.gz"),
-        os.path.join(trace_dir, "**", "*.trace.json"),
-    ]
-    files: List[str] = []
-    for p in pats:
-        files.extend(glob.glob(p, recursive=True))
-    return sorted(files)
+def _xplane_files(trace_dir: str) -> List[str]:
+    return sorted(glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
+                            recursive=True))
+
+
+def _event(ev, line: str) -> Dict:
+    return {"name": ev.name, "dur": ev.duration_ns / 1e3, "ts": ev.start_ns / 1e3,
+            "line": line, "args": {k: v for k, v in ev.stats}}
 
 
 def load_device_events(trace_dir: str) -> List[Dict]:
-    """All complete ('ph'=='X') events on device (TPU/accelerator) lanes.
+    """Device events ({name, dur (us), ts (us), line, args}) of every GPU plane,
+    or the XLA op events of the host CPU plane when the trace has no GPU."""
+    import jax
 
-    Host lanes (python threads, runtime) are excluded by process name so the
-    report is device time, not wall time.  On a CPU-only trace (no accelerator
-    lanes — XLA:CPU ops land on ``/host:CPU``) every complete event is kept,
-    so the tool stays usable for interpret-mode sanity runs.
-    """
     events: List[Dict] = []
     fallback: List[Dict] = []
-    for path in _trace_files(trace_dir):
-        op = gzip.open if path.endswith(".gz") else open
-        with op(path, "rt") as f:
-            data = json.load(f)
-        raw = data.get("traceEvents", data if isinstance(data, list) else [])
-        pid_name: Dict[int, str] = {}
-        for ev in raw:
-            if ev.get("ph") == "M" and ev.get("name") == "process_name":
-                pid_name[ev.get("pid")] = ev.get("args", {}).get("name", "")
-        for ev in raw:
-            if ev.get("ph") != "X":
-                continue
-            pname = pid_name.get(ev.get("pid"), "")
-            if "TensorFlow Name Scope" in pname or "Steps" in pname:
-                continue
-            if any(t in pname for t in ("TPU", "Device", "/device:", "XLA Op")):
-                events.append(ev)
-            else:
-                fallback.append(ev)
+    for path in _xplane_files(trace_dir):
+        data = jax.profiler.ProfileData.from_file(path)
+        for plane in data.planes:
+            if plane.name.startswith("/device:GPU"):
+                lines = list(plane.lines)
+                ops = [ln for ln in lines if ln.name == "XLA Ops"]
+                for ln in ops or [ln for ln in lines if ln.name.startswith("Stream")]:
+                    events.extend(_event(ev, ln.name) for ev in ln.events)
+            elif plane.name == "/host:CPU":
+                for ln in plane.lines:
+                    for ev in ln.events:
+                        if any(k == "hlo_op" for k, _ in ev.stats):
+                            fallback.append(_event(ev, ln.name))
     return events if events else fallback
 
 

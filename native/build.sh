@@ -1,7 +1,6 @@
 #!/bin/sh
-# Build the host-side native library into the python package.
+# Build the host-side native library into build/native/ (git-ignored).  The
+# package also builds it on first use; this runs the same build by hand.
 set -e
-cd "$(dirname "$0")"
-g++ -O3 -march=x86-64-v2 -fPIC -shared -std=c++17 \
-    neutfem_host.cpp -o ../neutfem_tpu/_libneutfem_host.so
-echo "built ../neutfem_tpu/_libneutfem_host.so"
+cd "$(dirname "$0")/.."
+python -c "from neutfem_jax import native; print('built', native.build())"

@@ -1,6 +1,6 @@
-// Host-side runtime kernels for neutfem_tpu (C ABI, loaded via ctypes).
+// Host-side runtime kernels for neutfem_jax (C ABI, loaded via ctypes).
 //
-// The TPU owns the compute path (JAX/XLA); these are the host-side pieces that
+// The device owns the compute path (JAX/XLA); these are the host-side pieces that
 // the reference implements in C++ (assembly precomputation, IO) rebuilt for the
 // grid-based design:
 //   * batched LDL^T factorization of the per-(group,direction) face-tridiagonal
@@ -9,7 +9,7 @@
 //   * volume-weighted block coarsening of XS grids (coarse.py),
 //   * buffered ASCII legacy-VTK export (NeutFEM.cpp:2137-2332 equivalent).
 //
-// Build: native/build.sh -> neutfem_tpu/_libneutfem_host.so ; python falls back
+// Build: native/build.sh -> neutfem_jax/_libneutfem_host.so ; python falls back
 // to numpy implementations when the library is absent.
 
 #include <cstdint>

@@ -78,7 +78,7 @@ def write_vtk(
                 for gt in range(ng):
                     scalar_fields.append((f"SigS_{gf}_to_{gt}", sigs[gt, gf]))
 
-    from neutfem_tpu.native import write_vtk_native
+    from neutfem_jax.native import write_vtk_native
 
     if write_vtk_native(filename, f"NeutFEM Output - k-eff={keff:.6f}",
                         xb, yb[:ny_p], zb[:nz_p], n_cells,

@@ -1,6 +1,6 @@
 """Independent dense-assembly oracle for the mixed RT_k/P_m discretization.
 
-Deliberately does NOT reuse neutfem_tpu's precomputed element tensors: basis functions are
+Deliberately does NOT reuse neutfem_jax's precomputed element tensors: basis functions are
 built as numpy ``Polynomial`` objects and all integrals are evaluated by brute-force
 tensor Gauss quadrature on each physical element, with the explicit contravariant Piola
 map.  This mirrors what the reference's ``LocalMatrices::Compute`` does pointwise
@@ -22,9 +22,9 @@ import numpy as np
 from numpy.polynomial import polynomial as npoly
 from numpy.polynomial.legendre import Legendre
 
-from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.fespace import FESpace
-from neutfem_tpu.mesh import boundary_attribute
+from neutfem_jax.bc import BCKind, BCSpec
+from neutfem_jax.fespace import FESpace
+from neutfem_jax.mesh import boundary_attribute
 
 
 def _legendre_poly(n):

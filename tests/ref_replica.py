@@ -5,7 +5,7 @@ Missing #1): every formula is transcribed directly from the reference C++ source
 (file:line cited inline), assembled with scipy.sparse, and solved with the same
 implicit-Schur CG + Chebyshev-accelerated power iteration the reference uses.  It
 shares NOTHING with tests/oracle.py (dense JAX quadrature oracle) or with
-neutfem_tpu (separable-tensor operators): quadrature points, basis evaluation,
+neutfem_jax (separable-tensor operators): quadrature points, basis evaluation,
 DOF numbering, assembly and the outer loop are all re-derived here from
 /root/reference/src/{FEM,NeutFEM,solvers}.cpp.
 
@@ -611,8 +611,8 @@ def replica_from_benchmark(run) -> ReplicaProblem:
     Chi = flat(s.get_Chi())
     SigS = np.asarray(s.get_SigS(), dtype=np.float64).reshape(ng, ng, NE)
 
-    from neutfem_tpu.bc import BCKind
-    from neutfem_tpu.mesh import boundary_attribute
+    from neutfem_jax.bc import BCKind
+    from neutfem_jax.mesh import boundary_attribute
 
     dirichlet = {}
     for axis in range(dim):

@@ -12,15 +12,15 @@ import scipy.linalg
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.power import (
+from neutfem_jax import config
+from neutfem_jax.power import (
     SolveOptions,
     biorthogonal_inner,
     fixed_source_solve,
     power_iteration,
     solve_subcritical,
 )
-from neutfem_tpu.ops.context import build_context
+from neutfem_jax.ops.context import build_context
 
 from oracle import DenseOracle
 from test_power import build_2d_problem, dense_keff

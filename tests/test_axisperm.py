@@ -1,28 +1,38 @@
-"""Internal axis orientation (compat layer, round 3).
+"""Internal axis orientation (compat layer).
 
-The TPU pads the minor array axis to 128 lanes and the second-minor to 8
-sublanes, so the compat layer solves the axis-RELABELED problem whose
-orientation minimizes padding waste (measured 1.69x at the 2.6M-cell IAEA-3D
-mesh) and converts at every IO boundary.  These tests pin that machinery: the
-relabeled solve must be indistinguishable from the identity-orientation solve
-on every public surface (eigenvalues, flux views, currents, projections,
-checkpoints, BC handling), including higher orders where the flux-mode axis
-must be re-gathered.
+The compat layer can solve an axis-RELABELED problem and convert at every IO
+boundary.  Its own choice (``mesh.best_axis_order``) is the identity; these tests
+pin the machinery through an explicit permutation, patched in where the compat
+layer takes its choice (``_choose_axis_perm``): the relabeled
+solve must be indistinguishable from the identity-orientation solve on every
+public surface (eigenvalues, flux views, currents, projections, checkpoints, BC
+handling), including higher orders where the flux-mode axis must be re-gathered.
 """
 
 import numpy as np
 import pytest
 
+import neutfem._neutfem_eigen as compat
 from neutfem import BCType, NeutFEM
-from neutfem._neutfem_eigen import _choose_axis_perm
-from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
+from neutfem_jax.mesh import CartesianMesh, best_axis_order, boundary_attribute
 
 
-def _mk(nx, ny, nz, rt_order=0, p_order=None, axisperm="auto", monkeypatch=None,
+PERM = (2, 1, 0)  # the relabelling the tests drive: user x <-> internal z
+IDENT = (0, 1, 2)
+
+
+def _orient(monkeypatch, perm):
+    """Make the compat layer solve in internal axis order ``perm``."""
+    monkeypatch.setattr(compat, "_choose_axis_perm", lambda mesh: perm)
+
+
+def _mk(nx, ny, nz, rt_order=0, p_order=None, axisperm=PERM, monkeypatch=None,
         mirror_xhi=False):
-    """Small heterogeneous 2-group core with axis-asymmetric XS."""
+    """Small heterogeneous 2-group core with axis-asymmetric XS; ``axisperm``
+    None keeps the compat layer's own choice."""
     assert monkeypatch is not None
-    monkeypatch.setenv("NEUTFEM_AXISPERM", axisperm)
+    if axisperm is not None:
+        _orient(monkeypatch, axisperm)
     if p_order is None:
         p_order = rt_order
     s = NeutFEM(rt_order, p_order, 2, np.linspace(0.0, 15.0 * nx, nx + 1),
@@ -51,21 +61,23 @@ def _mk(nx, ny, nz, rt_order=0, p_order=None, axisperm="auto", monkeypatch=None,
 
 
 def test_choose_axis_perm_heuristic():
-    m = CartesianMesh.from_breaks(np.linspace(0, 1, 5), np.linspace(0, 1, 7),
-                                  np.linspace(0, 1, 17))  # (nx,ny,nz)=(4,6,16)
-    assert _choose_axis_perm(m) == (2, 1, 0)  # 16-wide axis minor, y stays
-    m = CartesianMesh.from_breaks(np.linspace(0, 1, 9), np.linspace(0, 1, 9),
-                                  np.linspace(0, 1, 9))
-    assert _choose_axis_perm(m) == (0, 1, 2)  # symmetric: identity
-    m = CartesianMesh.from_breaks(np.linspace(0, 1, 5), np.linspace(0, 1, 17))
-    assert _choose_axis_perm(m) == (1, 0, 2)  # 2D: swap x/y only
-    m = CartesianMesh.from_breaks(np.linspace(0, 1, 5))
-    assert _choose_axis_perm(m) == (0, 1, 2)  # 1D: identity
+    """The compat layer takes the core's choice, which is the identity for
+    every dimensionality and aspect ratio."""
+    assert compat._choose_axis_perm is best_axis_order
+    m3 = CartesianMesh.from_breaks(np.linspace(0, 1, 5), np.linspace(0, 1, 7),
+                                   np.linspace(0, 1, 17))  # (nx,ny,nz)=(4,6,16)
+    m3b = CartesianMesh.from_breaks(np.linspace(0, 1, 129), np.linspace(0, 1, 3),
+                                    np.linspace(0, 1, 4))  # (128,2,3)
+    m2 = CartesianMesh.from_breaks(np.linspace(0, 1, 5), np.linspace(0, 1, 17))
+    m1 = CartesianMesh.from_breaks(np.linspace(0, 1, 5))
+    for m in (m3, m3b, m2, m1):
+        assert best_axis_order(m) == IDENT
 
 
 def test_axisperm_env_disables(monkeypatch):
-    s = _mk(4, 6, 16, axisperm="0", monkeypatch=monkeypatch)
-    assert s._axperm == (0, 1, 2)
+    """Without a patched permutation the solver works in user orientation."""
+    s = _mk(4, 6, 16, axisperm=None, monkeypatch=monkeypatch)
+    assert s._axperm == IDENT and s._imesh is s._mesh
 
 
 @pytest.mark.parametrize("mirror_xhi", [False, True])
@@ -75,7 +87,7 @@ def test_rt0_solve_matches_identity(monkeypatch, mirror_xhi):
     (a mis-mapped MIRROR face moves k by far more than the tolerance)."""
     sp = _mk(4, 6, 16, monkeypatch=monkeypatch, mirror_xhi=mirror_xhi)
     assert sp._axperm == (2, 1, 0)
-    s0 = _mk(4, 6, 16, axisperm="0", monkeypatch=monkeypatch, mirror_xhi=mirror_xhi)
+    s0 = _mk(4, 6, 16, axisperm=IDENT, monkeypatch=monkeypatch, mirror_xhi=mirror_xhi)
     kp, k0 = sp.SolveKeff(), s0.SolveKeff()
     assert abs(kp - k0) < 1e-10
     np.testing.assert_allclose(sp.get_flux(), s0.get_flux(), rtol=1e-7, atol=1e-9)
@@ -96,7 +108,7 @@ def test_rt1_solve_and_projection_match_identity(monkeypatch):
     exponents permute with the axes); project_flux exercises every mode."""
     sp = _mk(4, 6, 16, rt_order=1, monkeypatch=monkeypatch)
     assert sp._axperm == (2, 1, 0) and sp._fes.P == 8
-    s0 = _mk(4, 6, 16, rt_order=1, axisperm="0", monkeypatch=monkeypatch)
+    s0 = _mk(4, 6, 16, rt_order=1, axisperm=IDENT, monkeypatch=monkeypatch)
     kp, k0 = sp.SolveKeff(), s0.SolveKeff()
     assert abs(kp - k0) < 1e-9
     np.testing.assert_allclose(sp.get_flux(), s0.get_flux(), rtol=1e-6, atol=1e-8)
@@ -108,7 +120,7 @@ def test_rt1_solve_and_projection_match_identity(monkeypatch):
 
 def test_coarse_init_and_zoom_match_identity(monkeypatch):
     sp = _mk(4, 6, 16, monkeypatch=monkeypatch)
-    s0 = _mk(4, 6, 16, axisperm="0", monkeypatch=monkeypatch)
+    s0 = _mk(4, 6, 16, axisperm=IDENT, monkeypatch=monkeypatch)
     kp = sp.SolveKeff(use_coarse_init=True, coarse_factors=(2, 2, 2))
     k0 = s0.SolveKeff(use_coarse_init=True, coarse_factors=(2, 2, 2))
     assert abs(kp - k0) < 1e-10
@@ -128,7 +140,7 @@ def test_periodic_and_valued_neumann_match_identity(monkeypatch):
     the (2,1,0) perm), a prescribed inward current on the -y face, Dirichlet
     elsewhere."""
     def build(axisperm):
-        monkeypatch.setenv("NEUTFEM_AXISPERM", axisperm)
+        _orient(monkeypatch, axisperm)
         s = NeutFEM(0, 2, np.linspace(0.0, 60.0, 5), np.linspace(0.0, 90.0, 7),
                     np.linspace(0.0, 240.0, 17))
         for upper in (False, True):
@@ -146,7 +158,7 @@ def test_periodic_and_valued_neumann_match_identity(monkeypatch):
         s.set_tol(1e-7, 1e-7, 1e-7, 200, 400)
         return s
 
-    sp, s0 = build("auto"), build("0")
+    sp, s0 = build(PERM), build(IDENT)
     assert sp._axperm == (2, 1, 0) and s0._axperm == (0, 1, 2)
     # fixed-source subcritical solve exercises the source + BC machinery
     mp, m0 = sp.SolveSubcritical(), s0.SolveSubcritical()
@@ -164,7 +176,7 @@ def test_checkpoint_roundtrip_across_orientations(tmp_path, monkeypatch):
     path = str(tmp_path / "state")
     sp.save_state(path)
 
-    s0 = _mk(4, 6, 16, axisperm="0", monkeypatch=monkeypatch)
+    s0 = _mk(4, 6, 16, axisperm=IDENT, monkeypatch=monkeypatch)
     with pytest.warns(RuntimeWarning, match="internal axis order"):
         s0.load_state(path)
     assert s0._J is None
@@ -185,7 +197,7 @@ def test_checkpoint_roundtrip_across_orientations(tmp_path, monkeypatch):
 def test_vtk_export_orientation(tmp_path, monkeypatch):
     """VTK output must be identical bytes-for-values between orientations."""
     sp = _mk(4, 6, 16, monkeypatch=monkeypatch)
-    s0 = _mk(4, 6, 16, axisperm="0", monkeypatch=monkeypatch)
+    s0 = _mk(4, 6, 16, axisperm=IDENT, monkeypatch=monkeypatch)
     sp.SolveKeff(); s0.SolveKeff()
     fa, fb = str(tmp_path / "a.vtk"), str(tmp_path / "b.vtk")
     sp.ExportVTK(fa, export_current=True, export_xs=True)

@@ -5,12 +5,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.fespace import make_fespace
-from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
-from neutfem_tpu.ops.context import build_context
-from neutfem_tpu.power import SolveOptions, power_iteration
+from neutfem_jax import config
+from neutfem_jax.bc import BCKind, BCSpec
+from neutfem_jax.fespace import make_fespace
+from neutfem_jax.mesh import CartesianMesh, boundary_attribute
+from neutfem_jax.ops.context import build_context
+from neutfem_jax.power import SolveOptions, power_iteration
 
 DT = config.real_dtype
 

@@ -59,25 +59,24 @@ def test_biblis2d():
 
 
 def test_biblis2d_fine_mesh_parity():
-    """Convergence to the literature k_ref = 1.02511 (round-3 VERDICT Weak #4):
-    the TPU-validated ladder (PARITY_r04.json) is 8.12 / 1.06 / 0.34 / 0.27 pcm
-    at 4x4 / 8x8 / 16x16 / 32x32 — sub-pcm from 16x16."""
+    """Convergence to the literature k_ref = 1.02511 (the ladder of
+    benchmarks/parity.py is sub-pcm from 16x16)."""
     run = _run("biblis2d", 8)
     assert abs(run.pcm) < 3.0
 
 
 def test_koeberg2d_fine_mesh_parity():
-    """KOEBERG 4-group ladder (PARITY_r04.json): 20.2 / 6.63 / 2.45 / 1.17 pcm
-    at 4x4 / 8x8 / 16x16 / 32x32 vs k_ref = 1.007954."""
+    """KOEBERG 4-group against k_ref = 1.007954; the error shrinks with the
+    mesh (benchmarks/parity.py ladder)."""
     run = _run("koeberg2d", 8)
     assert abs(run.pcm) < 10.0
 
 
 def test_zion2d_fine_mesh_parity():
-    """ZION baffle ladder (PARITY_r04.json): 38.4 / 40.6 / 17.4 / 7.25 pcm at
-    4x4 / 8x8 / 16x16 / 32x32 vs k_ref = 1.274893 — the non-monotone 4->8 step
-    is the steel-baffle staircase (the nearest-assembly search re-resolves the
-    2.8575 cm baffle on each mesh); monotone from 8x8 on."""
+    """ZION baffle against k_ref = 1.274893 — the ladder is non-monotone from
+    4x4 to 8x8 because of the steel-baffle staircase (the nearest-assembly
+    search re-resolves the 2.8575 cm baffle on each mesh); monotone from 8x8
+    on."""
     run = _run("zion2d", 16)
     assert abs(run.pcm) < 25.0
 

@@ -18,12 +18,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.fespace import make_fespace
-from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
-from neutfem_tpu.ops.apply import phi_to_internal, schur_matvec
-from neutfem_tpu.ops.context import build_context
+from neutfem_jax import config
+from neutfem_jax.bc import BCKind, BCSpec
+from neutfem_jax.fespace import make_fespace
+from neutfem_jax.mesh import CartesianMesh, boundary_attribute
+from neutfem_jax.ops.apply import phi_to_internal, schur_matvec
+from neutfem_jax.ops.context import build_context
 
 DT = config.real_dtype
 
@@ -96,7 +96,7 @@ def test_condensed_matches_legacy(dim, k, m, per, monkeypatch):
 
 
 def test_condensed_matches_legacy_f32(monkeypatch):
-    """The folding must also hold in float32 (the TPU production dtype)."""
+    """The folding must also hold in float32 (the GPU production dtype)."""
     fes, ctx, v = _problem(3, 1, 1)
     ctx32 = {k: jnp.asarray(a, jnp.float32) if hasattr(a, "dtype") else a
              for k, a in ctx.items()}

@@ -1,6 +1,6 @@
 """Explicit-Schur direct solver path (ops/direct.py).
 
-TPU analogue of the reference's explicit Schur + direct factorization
+The analogue of the reference's explicit Schur + direct factorization
 (/root/reference/src/solvers.cpp:259-427, selected by LinearSolverType DIRECT_*
 in SchurSolver::PrepareSolver, :328-427).  The dense path must reproduce the
 matrix-free CG eigenvalue exactly (same discrete operator, different solve), and
@@ -56,9 +56,9 @@ def test_dense_schur_matches_matvec():
     """The materialized S must agree with the matrix-free schur_matvec column by
     column (same operator, two independent evaluation orders)."""
     import jax.numpy as jnp
-    from neutfem_tpu.ops.apply import schur_matvec
-    from neutfem_tpu.ops.direct import dense_schur_group
-    from neutfem_tpu.power import ctx_group
+    from neutfem_jax.ops.apply import schur_matvec
+    from neutfem_jax.ops.direct import dense_schur_group
+    from neutfem_jax.power import ctx_group
 
     s = make_solver_2d(5)
     for bid in range(1, 5):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from neutfem_tpu.elements import element_tensors, gauss_rule, legendre_table
+from neutfem_jax.elements import element_tensors, gauss_rule, legendre_table
 
 
 def test_legendre_orthogonality():

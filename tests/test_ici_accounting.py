@@ -1,4 +1,4 @@
-"""Tests for the ICI collective-byte accounting tool (benchmarks/ici_accounting.py)."""
+"""Tests for the collective-byte accounting tool (benchmarks/ici_accounting.py)."""
 
 import numpy as np
 import jax
@@ -30,10 +30,14 @@ def test_synthetic_inventory_depth_and_bytes():
 
     summ = summarize(inv)
     assert summ["2"]["bytes"] == 8 * 16 * 2 + 4 * 1 * 4
-    acct = accounting_for(summ, ng=2, inners_per_outer=10.0, ar_latency_us=2.0)
+    acct = accounting_for(summ, ng=2, inners_per_outer=10.0)
     # depth-1 bytes once + depth-2 bytes split over ng=2 loops times inners/outer
     assert acct["bytes_per_outer"] == 4 + int((8 * 16 * 2 + 16) / 2 * 10)
     assert acct["allreduces_per_outer"] == 1.0
+    # without a measured inner count only the per-inner / per-outer parts
+    bare = accounting_for(summ, ng=2)
+    assert bare["per_inner_bytes"] == (8 * 16 * 2 + 16) // 2
+    assert bare["per_outer_fixed_bytes"] == 4 and "bytes_per_outer" not in bare
 
 
 def test_real_compiled_sharded_loop_has_depth1_collectives():

@@ -12,7 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from neutfem_tpu.krylov import bicgstab, pcg, pcg_fused
+from neutfem_jax.krylov import bicgstab, pcg, pcg_fused
 
 
 def _spd_system(n, dtype, seed=0, cond=1e3):
@@ -92,7 +92,7 @@ def test_zero_rhs_guard():
 
 def test_fused_dots_single_reduce():
     """_dots computes k dot products in one variadic reduce and matches vdot."""
-    from neutfem_tpu.krylov import _dots
+    from neutfem_jax.krylov import _dots
 
     rng = np.random.default_rng(1)
     r = jnp.asarray(rng.standard_normal((7, 13)), jnp.float32)
@@ -108,7 +108,7 @@ def test_dots_complex_conjugation():
     """_dots must keep jnp.vdot's conjugated-first-operand semantics and return
     real scalars (the module docstring promises complex pytrees; the round-3
     fused-reduction refactor briefly dropped both — review finding)."""
-    from neutfem_tpu.krylov import _dots
+    from neutfem_jax.krylov import _dots
 
     rng = np.random.default_rng(5)
     a = jnp.asarray(rng.standard_normal((4, 6)) + 1j * rng.standard_normal((4, 6)),

@@ -1,23 +1,22 @@
 """Regression guards for the internal mode-axis-first array-layout contract.
 
 The solver hot path stores modes FIRST (phi (ng, P, nz, ny, nx), faces
-(ng, T, faces...)) so minor dims are always spatial — load-bearing for TPU
-layout assignment (see ops/apply.py header).  Public/compat arrays keep the
+(ng, T, faces...)) so minor dims are always spatial — load-bearing for XLA's
+layout assignment and the kernels' line views (see ops/apply.py header).  Public/compat arrays keep the
 reference-shaped trailing-mode layout.  These tests pin both sides so a future
-change cannot silently regress the convention (round-1 cost: 41% of device time
-in layout-conversion copies)."""
+change cannot silently regress the convention."""
 
 import numpy as np
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.fespace import make_fespace, zeros_state
-from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
-from neutfem_tpu.ops.apply import J_to_public, phi_to_internal, phi_to_public
-from neutfem_tpu.ops.context import build_context
-from neutfem_tpu.power import SolveOptions, compute_current, power_iteration
+from neutfem_jax import config
+from neutfem_jax.bc import BCKind, BCSpec
+from neutfem_jax.fespace import make_fespace, zeros_state
+from neutfem_jax.mesh import CartesianMesh, boundary_attribute
+from neutfem_jax.ops.apply import J_to_public, phi_to_internal, phi_to_public
+from neutfem_jax.ops.context import build_context
+from neutfem_jax.power import SolveOptions, compute_current, power_iteration
 
 DT = config.real_dtype
 

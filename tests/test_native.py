@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from neutfem_tpu import native
+from neutfem_jax import native
 
 
 def _numpy_ldlt(diag, off):
@@ -23,7 +23,29 @@ def _numpy_ldlt(diag, off):
 
 
 def test_library_built():
-    assert native.available(), "native/build.sh output missing"
+    assert native.available(), "native library did not build from source"
+    assert native.LIB_PATH.exists()
+    assert "build" in native.LIB_PATH.parts  # git-ignored build directory
+
+
+def test_library_builds_from_tracked_source(tmp_path):
+    """native.build compiles native/neutfem_host.cpp into any directory; the
+    result loads and factorizes like the numpy fallback."""
+    import ctypes
+
+    lib_path = native.build(tmp_path / "libneutfem_host.so")
+    lib = ctypes.CDLL(str(lib_path))
+    rng = np.random.default_rng(2)
+    diag = np.ascontiguousarray(rng.uniform(2.0, 3.0, (3, 9)))
+    off = np.ascontiguousarray(rng.uniform(-0.5, 0.5, (3, 8)))
+    d, l = diag.copy(), off.copy()
+    p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    lib.nf_tridiag_ldlt_batch.argtypes = [ctypes.POINTER(ctypes.c_double)] * 2 + [
+        ctypes.c_int64] * 2
+    lib.nf_tridiag_ldlt_batch(p(d), p(l), 3, 9)
+    want_d, want_l = _numpy_ldlt(diag, off)
+    np.testing.assert_allclose(d, want_d, rtol=1e-14)
+    np.testing.assert_allclose(l, want_l, rtol=1e-14)
 
 
 def test_tridiag_ldlt_matches_numpy():

@@ -15,12 +15,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.fespace import make_fespace
-from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
-from neutfem_tpu.ops.context import build_context
-from neutfem_tpu.power import SolveOptions, fixed_source_solve
+from neutfem_jax import config
+from neutfem_jax.bc import BCKind, BCSpec
+from neutfem_jax.fespace import make_fespace
+from neutfem_jax.mesh import CartesianMesh, boundary_attribute
+from neutfem_jax.ops.context import build_context
+from neutfem_jax.power import SolveOptions, fixed_source_solve
 
 DT = config.real_dtype
 
@@ -66,7 +66,7 @@ def test_neumann_analytic_slab_and_balance():
     # the output current at the boundary equals the prescribed value
     F = np.asarray(res["J"]["d0"]["face"][0, 0, 0, :, 0])
     js = 2.0 / (2.0 * 1.0)  # jac_x/detJ for fake transverse dims... compute below
-    from neutfem_tpu.mesh import CartesianMesh as _CM  # noqa: F401
+    from neutfem_jax.mesh import CartesianMesh as _CM  # noqa: F401
     jac = h / 2.0
     detj = jac  # 1D: detJ = hx/2
     assert F[0] * (jac / detj) == pytest.approx(q, rel=1e-10)

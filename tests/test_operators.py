@@ -12,11 +12,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.fespace import make_fespace
-from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
-from neutfem_tpu.ops.apply import (
+from neutfem_jax import config
+from neutfem_jax.bc import BCKind, BCSpec
+from neutfem_jax.fespace import make_fespace
+from neutfem_jax.mesh import CartesianMesh, boundary_attribute
+from neutfem_jax.ops.apply import (
     apply_B_dir,
     apply_BT_dir,
     phi_to_internal,
@@ -24,7 +24,7 @@ from neutfem_tpu.ops.apply import (
     schur_matvec,
     solve_A_dir,
 )
-from neutfem_tpu.ops.context import build_context
+from neutfem_jax.ops.context import build_context
 
 from oracle import DenseOracle
 

@@ -7,16 +7,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.parallel import (
+from neutfem_jax import config
+from neutfem_jax.parallel import (
     device_mesh,
     shard_context,
     shard_state,
     sharded_power_iteration,
 )
-from neutfem_tpu.ops.context import build_context
-from neutfem_tpu.power import SolveOptions, power_iteration
-from neutfem_tpu.fespace import make_fespace
+from neutfem_jax.ops.context import build_context
+from neutfem_jax.power import SolveOptions, power_iteration
+from neutfem_jax.fespace import make_fespace
 
 from test_cmfd_coarse import build_het_problem
 
@@ -80,7 +80,7 @@ def test_sharded_rt1_matches_single_device(problem):
     res_adj_single = power_iteration(fes1, ng, opts, ctx, phi0, 1.0, adjoint=True)
 
     def run_adj(c, p, k):
-        from neutfem_tpu.shardctx import sharding_scope
+        from neutfem_jax.shardctx import sharding_scope
 
         with sharding_scope(dmesh, {1: dmesh.axis_names[0]}):
             return power_iteration(fes1, ng, opts, c, p, k, adjoint=True)
@@ -152,8 +152,8 @@ def test_shard_context_memory_scales(problem):
 
 def _problem_3d(nz=16, ny=12, nx=8):
     """Heterogeneous 3D core whose nz divides the 8-device mesh."""
-    from neutfem_tpu.bc import BCKind, BCSpec
-    from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
+    from neutfem_jax.bc import BCKind, BCSpec
+    from neutfem_jax.mesh import CartesianMesh, boundary_attribute
 
     mesh = CartesianMesh.from_breaks(
         np.linspace(0, 10.0 * nx, nx + 1),

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from neutfem_tpu.ops.parttri import build_partitioned, tridiag_solve_partitioned
-from neutfem_tpu.ops.tridiag import tridiag_factor, _scan_solve
+from neutfem_jax.ops.parttri import build_partitioned, tridiag_solve_partitioned
+from neutfem_jax.ops.tridiag import tridiag_factor, _scan_solve
 
 P_DEV = 8
 
@@ -134,7 +134,7 @@ def test_pipeline_depth2_collectives_bounded():
     The first parttri implementation did the ceil<->body-even face-layout
     conversion with jnp-level slice/concat, which GSPMD lowered as a FULL
     all-gather of the solution array per application (~31 of 38.4 MB/inner at
-    3.5M z8 — SHARDING_r05.json); an isolated-solve harness could NOT see
+    3.5M z8, counted from the compiled HLO); an isolated-solve harness could NOT see
     this because a body-aligned device_put hides the reshard.  Pins:
 
     1. no single depth-2 (per-inner) all-gather moves more than the
@@ -147,9 +147,9 @@ def test_pipeline_depth2_collectives_bounded():
 
     from benchmarks.ici_accounting import collective_inventory
     from test_parallel import _problem_3d
-    from neutfem_tpu.parallel import (device_mesh, shard_context, shard_state,
+    from neutfem_jax.parallel import (device_mesh, shard_context, shard_state,
                                       sharded_power_iteration)
-    from neutfem_tpu.power import SolveOptions
+    from neutfem_jax.power import SolveOptions
 
     if len(jax.devices()) < P_DEV:
         pytest.skip("needs the 8-device virtual mesh")

@@ -8,12 +8,12 @@ import scipy.linalg
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.fespace import make_fespace
-from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
-from neutfem_tpu.ops.context import build_context
-from neutfem_tpu.power import SolveOptions, power_iteration
+from neutfem_jax import config
+from neutfem_jax.bc import BCKind, BCSpec
+from neutfem_jax.fespace import make_fespace
+from neutfem_jax.mesh import CartesianMesh, boundary_attribute
+from neutfem_jax.ops.context import build_context
+from neutfem_jax.power import SolveOptions, power_iteration
 
 from oracle import DenseOracle
 
@@ -77,7 +77,7 @@ def test_chebyshev_blend_matches_control_flow():
     the gated-off prefix, all three recurrence cases, and the nmax reset.
     Tolerance is a few ulp: the switch branches compile as closed XLA
     computations where FMA contraction differs from the eager blend ops."""
-    from neutfem_tpu.accel import chebyshev_apply, chebyshev_apply_blend, chebyshev_init
+    from neutfem_jax.accel import chebyshev_apply, chebyshev_apply_blend, chebyshev_init
 
     rng = np.random.default_rng(42)
     nmax, sigma, cheby_from = 4, 0.9, 2
@@ -344,7 +344,7 @@ def test_mirror_halving_symmetry():
 
 
 def test_line_preconditioner_same_k_fewer_inners():
-    """The x-line tridiagonal CG preconditioner (new TPU-native scope; the
+    """The x-line tridiagonal CG preconditioner (new scope; the
     reference's implicit-Schur CG is unpreconditioned, solvers.cpp:577-636) must
     reach the same eigenvalue as plain Jacobi equilibration with strictly fewer
     total inner iterations on a refined mesh."""
@@ -365,7 +365,7 @@ def test_zero_rhs_group_solve_short_circuits():
     """A group with zero source (chi_2 = 0, no scattering into it) must solve to
     exactly zero flux IMMEDIATELY: the warm start is nonzero while ||b|| = 0, so
     without the Krylov zero-rhs guard the relative stopping rule is unreachable
-    (1000 iterations per outer; NaN under TPU-emulated f64 — the reference's own
+    (1000 iterations per outer; NaN in f32 — the reference's own
     README quick-start example hits this)."""
     mesh, fes, ng, xs, bcs = build_2d_problem()
     xs["SigS"][:] = 0.0  # no 1 -> 2 scattering: group 2 has no source at all

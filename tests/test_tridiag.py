@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config  # noqa: F401  (enable x64)
-from neutfem_tpu.ops.tridiag import tridiag_factor, tridiag_solve
+from neutfem_jax import config  # noqa: F401  (enable x64)
+from neutfem_jax.ops.tridiag import tridiag_factor, tridiag_solve
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 33])

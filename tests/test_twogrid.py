@@ -1,4 +1,4 @@
-"""Two-grid Schur preconditioner (neutfem_tpu/twogrid.py): SPD, fixed point,
+"""Two-grid Schur preconditioner (neutfem_jax/twogrid.py): SPD, fixed point,
 iteration reduction, and decline paths.
 
 The preconditioner must be a FIXED SPD linear operator for CG validity — the
@@ -14,13 +14,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from neutfem_tpu import config
-from neutfem_tpu.bc import BCKind, BCSpec
-from neutfem_tpu.fespace import make_fespace
-from neutfem_tpu.mesh import CartesianMesh, boundary_attribute
-from neutfem_tpu.ops.context import build_context
-from neutfem_tpu.power import SolveOptions, ctx_group, power_iteration
-from neutfem_tpu.twogrid import attach_twogrid, twogrid_correction
+from neutfem_jax import config
+from neutfem_jax.bc import BCKind, BCSpec
+from neutfem_jax.fespace import make_fespace
+from neutfem_jax.mesh import CartesianMesh, boundary_attribute
+from neutfem_jax.ops.context import build_context
+from neutfem_jax.power import SolveOptions, ctx_group, power_iteration
+from neutfem_jax.twogrid import attach_twogrid, twogrid_correction
 
 DT = config.real_dtype
 
@@ -117,7 +117,7 @@ def test_dense_cap_falls_back_to_cheby():
 
 
 def test_dense_tg_factors_pick_richest_affordable():
-    from neutfem_tpu.twogrid import dense_tg_factors
+    from neutfem_jax.twogrid import dense_tg_factors
 
     mesh, fes, ng, xs, bcs, ctx = build_problem(nx=16, ny=12)
     assert dense_tg_factors(mesh, 8192) == (2, 2, 1)  # 8*6 = 48 fits at f=2
@@ -175,7 +175,7 @@ def test_jacobi_sweep_batched_correction():
 def test_auto_twogrid_rule():
     """The measured-winner auto rule (round 5): 2D >= ~64k cells with a
     dense-affordable coarsening."""
-    from neutfem_tpu.twogrid import AUTO_TG_MIN_CELLS, auto_twogrid
+    from neutfem_jax.twogrid import AUTO_TG_MIN_CELLS, auto_twogrid
 
     fine2d = CartesianMesh.from_breaks(np.linspace(0, 1, 513),
                                        np.linspace(0, 1, 129))   # 65536 cells
@@ -210,7 +210,7 @@ def test_compat_layer_auto_attaches_on_fine_2d(monkeypatch):
     """The compat layer attaches the dense coarse context when the auto rule
     fires (threshold lowered for test cost), and the solve matches a forced
     jacobi solve."""
-    import neutfem_tpu.twogrid as tg
+    import neutfem_jax.twogrid as tg
     from neutfem import BCType, NeutFEM, VerbosityLevel
 
     monkeypatch.delenv("NEUTFEM_PRECOND", raising=False)
